@@ -1,6 +1,6 @@
-"""image_lens_reproject_tpu — a TPU-native lens reprojection framework.
+"""image_lens_reproject_tpu — a JAX lens reprojection framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 IDLabMedia/image-lens-reproject (C++17 CPU CLI): reproject images between
 rectilinear, equidistant-fisheye, equisolid-fisheye and equirectangular
 lens models, with rotation, supersampling, NN/bilinear/bicubic
@@ -11,8 +11,8 @@ a scalar per-pixel CPU loop.
 
 Layout:
     models/    lens specs + pixel<->ray projection math + rotation
-    ops/       remap core, samplers, color ops, Pallas kernels
-    parallel/  mesh / sharding / multi-chip batch dispatch
+    ops/       remap core, samplers, color ops, fused remap+tonemap
+    parallel/  mesh / sharding / multi-device batch dispatch
     utils/     oracle, config JSON, misc host utilities
     io/        EXR / PNG / JPEG codecs (host side)
     pipeline   batch orchestrator (discovery, prefetch, device dispatch)
@@ -32,7 +32,7 @@ from .models.lens import (
 from .models.rotation import rotation_matrix, rotation_matrix_degrees
 from .ops.color import post_process, post_process_jit
 from .ops.remap import remap_batch_jit, remap_image, remap_jit
-from .ops.remap_fused import make_plan, remap_tonemap, remap_tonemap_planned
+from .ops.remap_fused import remap_tonemap
 
 __version__ = "0.1.0"
 
@@ -52,7 +52,5 @@ __all__ = [
     "remap_batch_jit",
     "remap_image",
     "remap_jit",
-    "make_plan",
     "remap_tonemap",
-    "remap_tonemap_planned",
 ]

@@ -34,6 +34,8 @@ try:
 except Exception:  # pragma: no cover
     _HAVE_PIL = False
 
+BACKEND = "Pillow" if _HAVE_PIL else "built-in zlib codec"
+
 # Byte value -> linear float LUT: (v/255)^2.2 in float32, one rounding.
 _DECODE_LUT = (np.arange(256, dtype=np.float32) / np.float32(255.0)) ** np.float32(2.2)
 

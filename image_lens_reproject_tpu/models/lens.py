@@ -1,6 +1,6 @@
 """Lens model specifications.
 
-TPU-native re-design of the reference's ``LensInfo`` tagged union
+Re-design of the reference's ``LensInfo`` tagged union
 (reference: src/config.hpp:7-37). Instead of a C union we use frozen
 dataclasses that are hashable so they can ride along as *static* arguments
 to ``jax.jit`` — every (in_lens_type, out_lens_type, interpolation, wrap)

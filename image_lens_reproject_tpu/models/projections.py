@@ -1,6 +1,6 @@
 """Pure projection math: pixel coordinate <-> light ray, per lens model.
 
-TPU-native re-design of the reference's per-pixel function-pointer pairs
+Re-design of the reference's per-pixel function-pointer pairs
 ``target_to_vec_t`` / ``vec_to_source_t`` (reference src/reproject.cpp:24-29,
 150-271). Here every function is a *vectorized* pure jnp map over whole
 coordinate fields — dense elementwise math that XLA fuses into the remap
@@ -16,7 +16,7 @@ parity with the reference is a hard requirement (outputs must match to
 
 All functions operate on (and return) float32 arrays of any shape and are
 trace-compatible with both jnp and numpy (the ``xp`` argument), so the same
-formulas serve the jitted TPU path and the float32 numpy oracle used in
+formulas serve the jitted device path and the float32 numpy oracle used in
 golden tests.
 """
 

@@ -1,10 +1,10 @@
 """The fused reprojection remap — the framework's compute core.
 
-TPU-native re-design of the reference's triple-templated per-pixel loop
+Re-design of the reference's triple-templated per-pixel loop
 ``reproject_from_to_with_interpolation`` (reference src/reproject.cpp:273-346)
 and its dispatch pyramid (348-419). The scalar loop becomes one traced
 function: a dense coordinate-field computation (pixel -> ray -> rotate ->
-source pixel, all elementwise VPU math that XLA fuses) followed by a
+source pixel, all elementwise math that XLA fuses) followed by a
 vectorized gather-interpolate. Lens types, interpolation mode, wrap flag
 and supersample count are *static* jit arguments, so each combination
 specializes at compile time — the analog of the reference's 36 template
@@ -101,7 +101,7 @@ def remap_image(
 
     # Pixel centers, image centered on (0, 0) (src/reproject.cpp:287-288).
     # row_offset/row_count select a horizontal band of the *output* —
-    # the unit of spatial sharding across chips (SURVEY.md §5.7): each
+    # the unit of spatial sharding across devices (SURVEY.md §5.7): each
     # device computes rows [row_offset, row_offset + row_count) of the
     # full out_h x out_w grid. row_offset may be a traced scalar
     # (jax.lax.axis_index under shard_map).

@@ -1,6 +1,6 @@
 """Gather-based interpolation samplers (nearest / bilinear / bicubic).
 
-TPU-native re-design of the reference's scalar per-pixel samplers
+Re-design of the reference's scalar per-pixel samplers
 (reference src/reproject.cpp:37-148). Each sampler here is a *vectorized
 gather*: tap indices are computed for a whole coordinate field at once,
 pixels are fetched with one flat `take` per tap, and tap weights are

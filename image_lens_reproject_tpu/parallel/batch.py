@@ -1,18 +1,13 @@
-"""Multi-chip sharded remap step (shard_map over a (batch, rows) mesh).
+"""Multi-device sharded remap step (shard_map over a (batch, rows) mesh).
 
 The full device-side "step" of the framework: a batch of source images,
-sharded over chips, is reprojected + tonemapped into a sharded output
+sharded over devices, is reprojected + tonemapped into a sharded output
 batch. Per-device work is a row-band of each output image; the only
 collective is an all_gather of source row-bands along the ``rows`` axis
-(tiled, rides ICI) because lens remaps gather globally from the source —
-for full-360 equirectangular inputs the horizontal wrap makes every
-device's band potentially read every source column, which is why the
-source is gathered rather than halo-exchanged (SURVEY.md §5.7).
-
-Scaling model (v5e-class chip, 4K RGBAZ f32 source ≈ 170 MB): the
-replicated source fits HBM comfortably, so gather-all is the right
-trade — the all_gather is bandwidth-cheap relative to the 16-tap bicubic
-gather traffic, and no halo bookkeeping enters the hot path.
+(tiled) because lens remaps gather globally from the source — for
+full-360 equirectangular inputs the horizontal wrap makes every device's
+band potentially read every source column, which is why the source is
+gathered rather than halo-exchanged (SURVEY.md §5.7).
 """
 
 from __future__ import annotations
@@ -21,13 +16,12 @@ import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.lens import LensSpec
 from ..ops import color as color_ops
 from ..ops import remap as remap_ops
-from .mesh import BATCH_AXIS, ROWS_AXIS, input_sharding, output_sharding, replicated
+from .mesh import BATCH_AXIS, ROWS_AXIS, input_sharding
 
 
 @functools.partial(
@@ -42,14 +36,7 @@ from .mesh import BATCH_AXIS, ROWS_AXIS, input_sharding, output_sharding, replic
         "n_samples",
         "exposure",
         "reinhard",
-        "tile_rows",
-        "n_groups",
-        "rb",
-        "scan_unroll",
-        "cb",
         "in_h",
-        "rescue_cap",
-        "rescue_budgets",
     ),
 )
 def sharded_remap_step(
@@ -65,14 +52,7 @@ def sharded_remap_step(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
-    tile_rows: int = 8,
-    n_groups: int = 0,
-    rb: int = 40,
-    scan_unroll: int = 0,
-    cb: int = 0,
     in_h: Optional[int] = None,
-    rescue_cap: int = 0,
-    rescue_budgets=None,
 ) -> jax.Array:
     """(B, H, W, C) sharded batch -> (B, out_h, out_w, C) sharded outputs.
 
@@ -82,10 +62,6 @@ def sharded_remap_step(
     pads with edge-replicated rows purely for even sharding transport)
     is sliced back to ``in_h`` after the all_gather, so the lens
     geometry always sees the true source height.
-
-    ``rescue_cap`` > 0 (static, identical on every device — SPMD) enables
-    the pass-2 rescue inside each device's band; size it with
-    ``size_rescue_cap`` (the max rescuable count over all bands).
     """
     n_rows = mesh.shape[ROWS_AXIS]
     band = -(-out_h // n_rows)
@@ -95,47 +71,15 @@ def sharded_remap_step(
 
     rot_spec = P() if rotation is not None else None
 
-    # Use the Pallas kernel per row-band on TPU (each device runs its own
-    # kernel launches over its band); pure-XLA banding elsewhere.
-    from ..ops import dispatch
-    from ..ops.pallas import remap_kernel
-
-    use_kernel = (
-        not dispatch.pure_xla_forced()
-        and (jax.default_backend() == "tpu" or remap_kernel._INTERPRET)
-    )
-
     def step(local_src, rot):
-        # local_src: (B/b, H_pad/r, W, C). Gather full source rows along
-        # ICI, then drop transport-only padding rows.
+        # local_src: (B/b, H_pad/r, W, C). Gather full source rows, then
+        # drop transport-only padding rows.
         full_src = jax.lax.all_gather(local_src, ROWS_AXIS, axis=1, tiled=True)
         if full_src.shape[1] != in_h:
             full_src = full_src[:, :in_h]
         row0 = jax.lax.axis_index(ROWS_AXIS) * band
 
         def one(img):
-            if use_kernel:
-                return remap_kernel.remap_pallas(
-                    img,
-                    rot,
-                    in_lens=in_lens,
-                    out_lens=out_lens,
-                    out_h=out_h,
-                    out_w=out_w,
-                    interp=interp,
-                    n_samples=n_samples,
-                    exposure=exposure,
-                    reinhard=reinhard,
-                    tile_rows=tile_rows,
-                    n_groups=n_groups,
-                    rb=rb,
-                    scan_unroll=scan_unroll,
-                    cb=cb,
-                    row0=row0,
-                    band_rows=band,
-                    rescue_cap=rescue_cap,
-                    rescue_budgets=rescue_budgets,
-                )
             out = remap_ops.remap_image(
                 img,
                 rot,
@@ -152,72 +96,22 @@ def sharded_remap_step(
                 out = color_ops.post_process(out, exposure, reinhard)
             return out
 
-        if use_kernel:
-            # pallas_call + scalar prefetch don't vmap; the local batch is
-            # small and static, so a python loop is fine.
-            return jnp.stack([one(full_src[i]) for i in range(full_src.shape[0])])
         return jax.vmap(one)(full_src)
 
     in_specs = (P(BATCH_AXIS, ROWS_AXIS, None, None), rot_spec)
     out_specs = P(BATCH_AXIS, ROWS_AXIS, None, None)
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axis
-    # metadata; correctness is covered by the sharded-vs-single tests.
     if rotation is None:
         fn = jax.shard_map(
             lambda s: step(s, None), mesh=mesh, in_specs=(in_specs[0],),
-            out_specs=out_specs, check_vma=False,
+            out_specs=out_specs,
         )
         result = fn(batch)
     else:
         fn = jax.shard_map(
             step, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
         )
         result = fn(batch, rotation)
     return result[:, :out_h] if out_h_pad != out_h else result
-
-
-def size_rescue_cap(
-    mesh: Mesh,
-    *,
-    in_lens: LensSpec,
-    out_lens: LensSpec,
-    in_h: int,
-    in_w: int,
-    out_h: int,
-    out_w: int,
-    interp: str,
-    rotation=None,
-    n_samples: int = 1,
-    tile_rows: int = 8,
-    n_groups: int = 0,
-    rb: int = 40,
-    scan_unroll: int = 0,
-    cb: int = 0,
-    channels: int = 3,
-    rescue_budgets=None,
-) -> int:
-    """Static pass-2 rescue cap for sharded_remap_step: the max rescuable
-    sub-tile count over every device's row band (config-only; one host
-    pass per band at plan time), rounded up to 128. 0 disables rescue.
-    ``rescue_budgets`` must match the (ng, g) passed to the step."""
-    from ..ops.pallas import remap_kernel
-
-    n_rows = mesh.shape[ROWS_AXIS]
-    band = -(-out_h // n_rows)
-    worst = 0
-    for r in range(n_rows):
-        scalars, bad, rescue = remap_kernel.make_prepass(
-            rotation, in_lens=in_lens, out_lens=out_lens, in_h=in_h,
-            in_w=in_w, out_h=out_h, out_w=out_w, interp=interp,
-            n_samples=n_samples, tile_rows=tile_rows, n_groups=n_groups,
-            rb=rb, scan_unroll=scan_unroll, cb=cb, row0=r * band,
-            band_rows=band, channels=channels, with_rescue=True,
-            rescue_budgets=rescue_budgets,
-        )
-        n = int(jnp.sum(jnp.logical_and(bad, rescue[3] > 0)))
-        worst = max(worst, n)
-    return -(-worst // 128) * 128 if worst else 0
 
 
 def shard_batch(batch, mesh: Mesh):

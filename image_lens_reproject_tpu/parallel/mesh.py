@@ -1,20 +1,21 @@
 """Device mesh construction and sharding helpers.
 
-TPU-native parallelism design (SURVEY.md §2.3, §5.7-5.8). The reference's
-only scaling axis is image count on a CPU thread pool (src/main.cpp:
-536-660); here the first-class axes are:
+Parallelism design (SURVEY.md §2.3, §5.7-5.8). The reference's only
+scaling axis is image count on a CPU thread pool (src/main.cpp:536-660);
+here the first-class axes are:
 
-* ``batch`` — data parallelism: images of a batch spread across chips
+* ``batch`` — data parallelism: images of a batch spread across devices
   (the direct analog of the reference's per-image thread fan-out);
 * ``rows``  — intra-image spatial parallelism: the *output pixel grid* of
-  each image is split into horizontal bands across chips (the analog of
-  sequence/context parallelism; the equirect wraparound is the
+  each image is split into horizontal bands across devices (the analog
+  of sequence/context parallelism; the equirect wraparound is the
   ring-attention analog and is handled by gathering full source rows).
 
-Collectives: one ``all_gather`` of source row-bands along ``rows`` per
-step (rides ICI), nothing else — remapping is gather-heavy but
-communication-light, so a 2-D mesh with XLA-inserted collectives is the
-whole story; no custom transport is warranted.
+The mesh is a plain (batch, rows) reshape of the device list; it assumes
+no interconnect topology. Collectives: one ``all_gather`` of source
+row-bands along ``rows`` per step, nothing else — remapping is
+gather-heavy but communication-light, so a 2-D mesh with XLA-inserted
+collectives is the whole story; no custom transport is warranted.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Tracing / profiling zones — the TPU analog of the reference's Tracy hooks.
+"""Tracing / profiling zones — the analog of the reference's Tracy hooks.
 
 Reference: Tracy ``ZoneScoped`` macros around decode / remap / tonemap /
 encode (src/reproject.cpp:277,407,422; src/image_formats.cpp:145,209,306;

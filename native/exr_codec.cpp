@@ -1,6 +1,6 @@
 // Native EXR scanline-block codec core for image_lens_reproject_tpu.
 //
-// The TPU framework's host-side data loader: the per-block hot path of
+// The framework's host-side data loader: the per-block hot path of
 // OpenEXR scanline decode/encode (zlib inflate/deflate, the EXR ZIP
 // predictor + two-half interleave transform, HALF<->FLOAT conversion,
 // planar->interleaved pixel layout), parallelized across blocks with a

@@ -89,6 +89,25 @@ class TestArgValidation:
         assert "only specify one output lens type" in capsys.readouterr().out
 
 
+class TestRuntimeOptions:
+    @pytest.mark.parametrize("flag", ["--pure-xla", "--rescue=on", "--split=on"])
+    def test_kernel_selection_flags_are_gone(self, flag, capsys):
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(["--single", "a.png", "-o", "out", flag])
+        assert "unrecognized arguments" in capsys.readouterr().err
+
+    def test_options_from_args_writes_nothing(self, tmp_path):
+        argv = ["--single", "a.png", "-o", str(tmp_path / "out"), "--png",
+                "--no-configs", "64,64", "--i-equidistant", "3.14159265358979",
+                "--rectilinear", "35,36", "--output-resolution", "32,16",
+                "--bl", "--rotation", "10,0,0", "--mesh", "2,1"]
+        opts, out_cfg = cli.options_from_args(cli.build_parser().parse_args(argv))
+        assert out_cfg is None
+        assert (opts.out_width, opts.out_height, opts.interp) == (32, 16, "bilinear")
+        assert opts.rotation.shape == (3, 3) and opts.mesh == "2,1"
+        assert not (tmp_path / "out").exists()
+
+
 class TestLensStringParsers:
     def test_rectilinear_derives_sensor_height(self):
         lens = cli.parse_rectilinear("35,36", 1920, 1080)

@@ -73,3 +73,28 @@ def test_half_conversion_edge_values(tmp_path):
     exr.write_exr(path, img)
     back = exr.read_exr(path)
     np.testing.assert_array_equal(back.data, img.astype(np.float16).astype(F))
+
+
+def test_build_falls_back_to_gxx_when_cmake_fails(tmp_path):
+    # A cmake that is on PATH but cannot build (e.g. its ninja is missing)
+    # must not stop the build: build.sh compiles with g++ directly.
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    src = Path(native._NATIVE_DIR)
+    work = tmp_path / "native"
+    work.mkdir()
+    for name in ("build.sh", "exr_codec.cpp", "CMakeLists.txt"):
+        shutil.copy(src / name, work / name)
+    fake = tmp_path / "bin"
+    fake.mkdir()
+    for tool in ("cmake", "ninja"):
+        (fake / tool).write_text("#!/bin/sh\nexit 1\n")
+        (fake / tool).chmod(0o755)
+    env = dict(os.environ, PATH=f"{fake}{os.pathsep}{os.environ['PATH']}")
+    proc = subprocess.run(["sh", str(work / "build.sh")], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert (work / "libilr_native.so").exists()

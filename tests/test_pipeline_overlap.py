@@ -1,7 +1,7 @@
 """Pipeline stage-overlap evidence (SURVEY §2.3, VERDICT r3 #5).
 
 The 3-stage pipeline (decode threads -> batched device dispatch ->
-encode threads) claims host IO overlaps device compute — the TPU analog
+encode threads) claims host IO overlaps device compute — the analog
 of the reference's CTPL per-image fan-out (src/main.cpp:536-660). A
 1-core CI host cannot demonstrate that with real codecs (every stage
 competes for the same core), so the stages are stubbed with

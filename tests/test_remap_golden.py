@@ -17,11 +17,12 @@ import pytest
 from image_lens_reproject_tpu.models.lens import (
     FisheyeEquidistant,
     FisheyeEquisolid,
+    FisheyeStereographic,
     Rectilinear,
     full_equirectangular,
 )
 from image_lens_reproject_tpu.models.rotation import rotation_matrix_degrees
-from image_lens_reproject_tpu.ops import color, remap, sampling
+from image_lens_reproject_tpu.ops import color, remap, remap_fused, sampling
 from image_lens_reproject_tpu.utils import oracle
 
 F = np.float32
@@ -46,6 +47,21 @@ EQUISOLID = FisheyeEquisolid(
     focal_length=15.0, fov=math.pi, sensor_width=36.0, sensor_height=36.0
 )
 EQUIRECT = full_equirectangular()
+STEREO = FisheyeStereographic(
+    focal_length=10.0, fov=math.pi, sensor_width=36.0, sensor_height=36.0
+)
+
+LENSES = {
+    "rect": RECT,
+    "equidist": EQUIDIST,
+    "equisolid": EQUISOLID,
+    "stereo": STEREO,
+    "equirect": EQUIRECT,
+}
+# Every (input lens, output lens) pair of the five lens types.
+LENS_PAIRS = [
+    pytest.param(LENSES[a], LENSES[b], id=f"{a}-{b}") for a in LENSES for b in LENSES
+]
 
 
 class TestSamplerParity:
@@ -87,17 +103,7 @@ class TestSamplerParity:
 
 
 class TestCoordinateField:
-    @pytest.mark.parametrize(
-        "in_lens,out_lens",
-        [
-            (EQUIDIST, RECT),
-            (EQUIRECT, RECT),
-            (RECT, EQUIRECT),
-            (EQUISOLID, EQUIRECT),
-            (RECT, EQUISOLID),
-            (EQUIRECT, EQUIDIST),
-        ],
-    )
+    @pytest.mark.parametrize("in_lens,out_lens", LENS_PAIRS)
     def test_jnp_vs_oracle_coords(self, in_lens, out_lens):
         out_h, out_w, in_h, in_w = 36, 64, 48, 96
         cx = (np.arange(out_w, dtype=F) + F(0.5)) - F(out_w * 0.5)
@@ -128,26 +134,21 @@ class TestCoordinateField:
 
 class TestEndToEnd:
     @pytest.mark.parametrize("interp", ["nearest", "bilinear", "bicubic"])
-    @pytest.mark.parametrize(
-        "in_lens,out_lens",
-        [
-            (EQUIDIST, RECT),
-            (EQUIRECT, RECT),  # wrap path
-            (RECT, EQUIRECT),
-            (EQUISOLID, EQUIRECT),
-        ],
-    )
+    @pytest.mark.parametrize("in_lens,out_lens", LENS_PAIRS)
     def test_remap_matches_oracle(self, interp, in_lens, out_lens):
+        # A small rotation keeps same-lens pairs off exact half-pixel
+        # coordinates, where nearest's round-half tie flips on the last bit.
         src = smooth_image(48, 96, 3, seed=1)
+        rot = rotation_matrix_degrees(3.0, -2.0, 1.0)
         got = np.asarray(
             remap.remap_jit(
-                jnp.asarray(src), None,
+                jnp.asarray(src), jnp.asarray(rot),
                 in_lens=in_lens, out_lens=out_lens,
                 out_h=40, out_w=72, interp=interp, n_samples=1,
             )
         )
         want = oracle.oracle_remap(
-            src, None, in_lens=in_lens, out_lens=out_lens,
+            src, rot, in_lens=in_lens, out_lens=out_lens,
             out_h=40, out_w=72, interp=interp, n_samples=1,
         )
         assert got.shape == want.shape == (40, 72, 3)
@@ -219,6 +220,46 @@ class TestEndToEnd:
                 out_h=16, out_w=24, interp="bilinear", n_samples=1,
             )
             np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+class TestRemapTonemap:
+    """The fused entry point against the oracle remap + post-process."""
+
+    @pytest.mark.parametrize("interp", ["nearest", "bilinear", "bicubic"])
+    @pytest.mark.parametrize("channels", [1, 3, 4, 5])
+    def test_matches_oracle(self, channels, interp):
+        src = smooth_image(48, 96, channels, seed=30 + channels) * 2.0
+        rot = rotation_matrix_degrees(12.0, 4.0, -2.0)
+        kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=40, out_w=72,
+                  interp=interp, n_samples=1)
+        got = np.asarray(remap_fused.remap_tonemap(
+            jnp.asarray(src), jnp.asarray(rot), exposure=2.0, reinhard=4.0, **kw))
+        want = oracle.oracle_post_process(
+            oracle.oracle_remap(src, rot, **kw), 2.0, 4.0)
+        assert got.shape == want.shape == (40, 72, channels)
+        np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+class TestRowBands:
+    """A banded remap (row_offset/row_count) equals the same rows of the
+    full image, including a last band cut short by out_h."""
+
+    @pytest.mark.parametrize("out_h,band", [(24, 8), (30, 8), (31, 7), (17, 5), (9, 9)])
+    def test_bands_compose_to_full(self, out_h, band):
+        src = smooth_image(48, 96, 3, seed=40)
+        rot = rotation_matrix_degrees(-8.0, 6.0, 2.0)
+        kw = dict(in_lens=EQUISOLID, out_lens=EQUIRECT, out_h=out_h, out_w=40,
+                  interp="bicubic", n_samples=1)
+        full = np.asarray(remap.remap_jit(jnp.asarray(src), jnp.asarray(rot), **kw))
+        bands = [
+            np.asarray(remap.remap_image(
+                jnp.asarray(src), jnp.asarray(rot), row_offset=jnp.int32(r0),
+                row_count=band, **kw))
+            for r0 in range(0, out_h, band)
+        ]
+        banded = np.concatenate(bands, axis=0)
+        assert banded.shape[0] == -(-out_h // band) * band
+        np.testing.assert_allclose(banded[:out_h], full, atol=1e-5)
 
 
 class TestPostProcess:
